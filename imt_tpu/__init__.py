@@ -1,10 +1,11 @@
-"""imt_tpu — a TPU-native indexed-Merkle-tree engine.
+"""imt_tpu — an accelerator-resident indexed-Merkle-tree engine.
 
-A from-scratch JAX/XLA/Pallas framework with the full capability surface of
+A from-scratch JAX/XLA framework with the full capability surface of
 aerius-labs/indexed-merkle-tree-halo2 (Aztec-style nullifier tree over
-Poseidon/BN254), redesigned for TPU hardware: limb/digit-decomposed field
-arithmetic on the VPU and MXU, batched level-parallel tree ops, sort-based
-batched insertion, and mesh-sharded scaling.
+Poseidon/BN254): residue/limb-decomposed field arithmetic on the vector and
+matrix units, batched level-parallel tree ops, sort-based batched
+insertion, and mesh-sharded scaling.  It runs on an NVIDIA GPU (and on the
+CPU for tests).
 
 Quick start::
 

@@ -1,11 +1,11 @@
-// Native (C++) oracle for the TPU indexed-Merkle-tree engine.
+// Native (C++) oracle for the device indexed-Merkle-tree engine.
 //
 // Plays the role pse-poseidon + halo2curves play for the reference
 // (Cargo.toml:14-16): an independent, fast, bit-exact implementation of
 //   * BN254 Fr Montgomery arithmetic (4x64-bit limbs),
 //   * the Poseidon permutation/sponge (T=3, RATE=2, R_F=8, R_P=57),
 //   * Merkle tree build / proof / verify,
-// used for cross-checking the JAX/Pallas device paths at scale (millions of
+// used for cross-checking the JAX device paths at scale (millions of
 // property-test vectors per second) — the reference's native-vs-circuit
 // testing discipline (SURVEY §4) with the C++ oracle in the native seat.
 //

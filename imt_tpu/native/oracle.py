@@ -238,3 +238,13 @@ def hash2_u64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     out = np.zeros_like(a)
     lib.imt_hash2(_ptr(a), _ptr(b), _ptr(out), a.shape[0])
     return out
+
+
+def hash3_u64(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    lib = _load()
+    a = np.ascontiguousarray(a, np.uint64)
+    b = np.ascontiguousarray(b, np.uint64)
+    c = np.ascontiguousarray(c, np.uint64)
+    out = np.zeros_like(a)
+    lib.imt_hash3(_ptr(a), _ptr(b), _ptr(c), _ptr(out), a.shape[0])
+    return out

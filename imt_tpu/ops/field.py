@@ -1,12 +1,11 @@
-"""BN254 scalar-field (Fr) arithmetic as limb-decomposed JAX ops for TPU.
+"""BN254 scalar-field (Fr) arithmetic as limb-decomposed JAX ops.
 
-Design (TPU-first, not a port):
+Design (data-parallel, not a port):
 
 * A field element is 16 limbs of 16 bits held in ``uint32``.  The limb axis is
   the *leading* axis — device arrays are ``uint32[16, *batch]`` — so that the
-  batch dimension lands on the TPU vector lanes (128-wide) and the limb axis
-  on sublanes.  All ops are elementwise over the batch and vectorize on the
-  VPU; there is no scalar loop over batch anywhere.
+  batch is the minor, contiguous axis.  All ops are elementwise over the
+  batch; there is no scalar loop over batch anywhere.
 
 * Montgomery arithmetic with R = 2^256, word radix 2^16 (CIOS with lazy
   carries).  ``mont_mul`` keeps the invariant: inputs/outputs are < 2p with
@@ -15,8 +14,9 @@ Design (TPU-first, not a port):
 
 * The reference implements this layer in Rust via halo2curves' 4x64-bit
   Montgomery form (reference Cargo.toml:14, src/indexed_merkle_tree.rs:382-385
-  quotes the modulus).  64-bit multiplies don't exist on the TPU VPU, hence
-  the 16-bit-radix redesign; ``uint32`` multiplies of 16-bit limbs are exact.
+  quotes the modulus).  The 16-bit radix keeps every product inside one
+  ``uint32`` (16-bit limb products are exact) on hardware without a fast
+  64-bit multiply.
 
 Why < 2p ("incomplete") representation: with p < 2^254 and R = 2^256 we have
 4p < R, so CIOS on inputs < 2p yields outputs < 2p without a final
@@ -107,69 +107,20 @@ def int_to_mont_limbs(x: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Constant bundle
-#
-# Outside Pallas, ops materialize their constant limb tables lazily from the
-# numpy globals.  Inside a Pallas kernel, captured array constants are not
-# allowed -- a kernel builds a FieldConsts from slices of a VMEM ref and
-# passes it to every op.
+# Constant columns ([K, 1]-shaped, broadcast against [K, *batch] limb arrays)
 # ---------------------------------------------------------------------------
-
-class FieldConsts:
-    """Broadcastable constant columns ([K, 1]-shaped) for the field ops."""
-
-    __slots__ = ("p", "neg_two_p17", "two_p17", "p17", "neg_p17", "r2", "one")
-
-    def __init__(self, p, neg_two_p17, two_p17, p17, neg_p17, r2, one):
-        self.p = p                    # [16, 1] modulus limbs
-        self.neg_two_p17 = neg_two_p17  # [17, 1] 2^272 - 2p
-        self.two_p17 = two_p17        # [17, 1] 2p
-        self.p17 = p17                # [17, 1] p
-        self.neg_p17 = neg_p17        # [17, 1] 2^272 - p
-        self.r2 = r2                  # [16, 1] R^2 mod p (standard form)
-        self.one = one                # [16, 1] 1 (standard form)
-
 
 def _np_col(vals, n):
     return np.array(_int_to_limbs_list(vals, n), dtype=np.uint32)[:, None]
 
 
-def default_consts() -> FieldConsts:
-    """Constants as numpy columns (fine outside Pallas)."""
-    return FieldConsts(
-        p=_np_col(P, LIMBS),
-        neg_two_p17=_np_col((1 << 272) - TWO_P, 17),
-        two_p17=_np_col(TWO_P, 17),
-        p17=_np_col(P, 17),
-        neg_p17=_np_col((1 << 272) - P, 17),
-        r2=_np_col(R2_MOD_P, LIMBS),
-        one=_np_col(1, LIMBS),
-    )
-
-
-CONST_COLUMNS = ("p", "neg_two_p17", "two_p17", "p17", "neg_p17", "r2", "one")
-
-
-def consts_table() -> np.ndarray:
-    """All constant columns packed as uint32[17, n_cols] (limb-major), for
-    shipping into a Pallas kernel as one ref."""
-    fc = default_consts()
-    cols = []
-    for name in CONST_COLUMNS:
-        c = getattr(fc, name)
-        if c.shape[0] < 17:
-            c = np.concatenate([c, np.zeros((17 - c.shape[0], 1), np.uint32)])
-        cols.append(c)
-    return np.concatenate(cols, axis=1)
-
-
-def consts_from_table(tab) -> FieldConsts:
-    """Rebuild FieldConsts from a [17, n_cols] array/ref value."""
-    kw = {}
-    for i, name in enumerate(CONST_COLUMNS):
-        col = tab[:, i:i + 1]
-        kw[name] = col[:LIMBS] if name in ("p", "r2", "one") else col
-    return FieldConsts(**kw)
+_P_COL = _np_col(P, LIMBS)                           # modulus limbs
+_NEG_TWO_P17 = _np_col((1 << 272) - TWO_P, 17)       # 2^272 - 2p
+_TWO_P17 = _np_col(TWO_P, 17)
+_P17 = _np_col(P, 17)
+_NEG_P17 = _np_col((1 << 272) - P, 17)               # 2^272 - p
+_R2_COL = _np_col(R2_MOD_P, LIMBS)                   # R^2 mod p, standard form
+_ONE_COL = _np_col(1, LIMBS)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +135,7 @@ def _shift_down(x, k: int):
     return jnp.concatenate([pad, x[:-k]], axis=0)
 
 
-def _propagate(t, out_limbs: int, unroll: bool = False):
+def _propagate(t, out_limbs: int):
     """Exact carry propagation of a lazy limb array — fully parallel.
 
     t: uint32[K, ...] with entries < 2^23 interpreted as sum(t[j] * 2^16j).
@@ -194,8 +145,8 @@ def _propagate(t, out_limbs: int, unroll: bool = False):
     One local combine pass leaves digits x_j <= 2^16 + 127 whose pending
     carries are 0/1; a Kogge-Stone prefix over (generate, propagate) bits
     resolves them exactly in ceil(log2(K)) vector steps — no scan, no
-    sequential limb walk (the TPU-native replacement for the carry loop a
-    CPU bignum would use).  `unroll` is accepted for API compatibility.
+    sequential limb walk (the data-parallel replacement for the carry loop a
+    CPU bignum would use).
     """
     k = t.shape[0]
     if out_limbs > k:
@@ -231,8 +182,7 @@ def _borrow_lt(a, b):
         g = g | (p & _shift_down(g, step))
         p = p & _shift_down(p, step)
         step <<= 1
-    # static slice + squeeze (plain g[-1] lowers to dynamic_slice, which
-    # Mosaic cannot lower inside Pallas kernels)
+    # static slice + squeeze of the last prefix row
     return jnp.squeeze(jax.lax.slice_in_dim(g, k - 1, k, axis=0), axis=0)
 
 
@@ -243,12 +193,11 @@ def _ge_col(a, b_col):
     return ~_borrow_lt(a, bvec)
 
 
-def _cond_sub_2p(t17, unroll: bool = False, fc: FieldConsts | None = None):
+def _cond_sub_2p(t17):
     """t (17 canonical limbs, value < 4p) -> value mod-2p-folded (< 2p), 16 limbs."""
-    fc = fc or default_consts()
-    ge = _ge_col(t17, fc.two_p17)
-    neg = jnp.reshape(fc.neg_two_p17, (17,) + (1,) * (t17.ndim - 1))
-    diff = _propagate(t17 + neg, 17, unroll=unroll)
+    ge = _ge_col(t17, _TWO_P17)
+    neg = jnp.reshape(_NEG_TWO_P17, (17,) + (1,) * (t17.ndim - 1))
+    diff = _propagate(t17 + neg, 17)
     # diff = t - 2p + 2^272; when ge, the 2^272 bit (limb 17) is dropped by
     # taking only 17 limbs and masking the top limb's overflow.
     sel = jnp.where(ge[None], diff, t17)
@@ -277,34 +226,31 @@ def _cios_body(b, n, zero_row):
     return body
 
 
-def mont_mul(a, b, unroll: bool = False, fc: FieldConsts | None = None):
+def mont_mul(a, b, unroll: bool = False):
     """Montgomery product a*b*R^{-1} mod p (CIOS, radix 2^16, lazy carries).
 
     Inputs < 2p with 16-bit limbs; output < 2p with 16-bit limbs.  The limb
     recursion runs as a lax.scan by default (small compiled graph); pass
-    unroll=True for a fully unrolled body (e.g. inside Pallas kernels).
+    unroll=True for a fully unrolled body (a flat graph for XLA).
     """
-    fc = fc or default_consts()
     batch_shape = a.shape[1:]
     zero_row = jnp.zeros((1,) + batch_shape, dtype=jnp.uint32)
     t = jnp.zeros((LIMBS + 1,) + batch_shape, dtype=jnp.uint32)
-    n = jnp.reshape(fc.p, (LIMBS,) + (1,) * len(batch_shape))
+    n = jnp.reshape(_P_COL, (LIMBS,) + (1,) * len(batch_shape))
     body = _cios_body(b, n, zero_row)
     if unroll:
-        # plain python loop: required inside Pallas kernels (Mosaic cannot
-        # lower scans with extensive inputs) and gives XLA a flat graph.
+        # plain python loop: gives XLA a flat graph
         for i in range(LIMBS):
             t, _ = body(t, a[i])
     else:
         t, _ = jax.lax.scan(body, t, a)
     # Lazy entries < ~2^23; value < 2p.  Canonicalize limbs.
-    return _propagate(t, LIMBS, unroll=unroll)
+    return _propagate(t, LIMBS)
 
 
-def add_mod(a, b, unroll: bool = False, fc: FieldConsts | None = None):
+def add_mod(a, b):
     """(a + b) folded below 2p.  Inputs < 2p (or < 4p combined headroom)."""
-    s = _propagate(a + b, LIMBS + 1, unroll=unroll)
-    return _cond_sub_2p(s, unroll=unroll, fc=fc)
+    return _cond_sub_2p(_propagate(a + b, LIMBS + 1))
 
 
 _FOUR_P_17 = np.array(_int_to_limbs_list(4 * P, 17), dtype=np.uint32)
@@ -334,27 +280,24 @@ def sub_mod(a, b):
     return s
 
 
-def normalize(a, unroll: bool = False, fc: FieldConsts | None = None):
+def normalize(a):
     """Reduce a (< 2p) to canonical form (< p)."""
-    fc = fc or default_consts()
     a17 = jnp.concatenate([a, jnp.zeros_like(a[:1])])
-    ge = _ge_col(a17, fc.p17)
-    neg = jnp.reshape(fc.neg_p17, (17,) + (1,) * (a.ndim - 1))
-    diff = _propagate(a17 + neg, 17, unroll=unroll)
+    ge = _ge_col(a17, _P17)
+    neg = jnp.reshape(_NEG_P17, (17,) + (1,) * (a.ndim - 1))
+    diff = _propagate(a17 + neg, 17)
     return jnp.where(ge[None], diff, a17)[:LIMBS]
 
 
-def to_mont(a, unroll: bool = False, fc: FieldConsts | None = None):
+def to_mont(a, unroll: bool = False):
     """Standard form -> Montgomery form (multiply by R^2 then reduce)."""
-    fc = fc or default_consts()
-    r2 = jnp.reshape(fc.r2, (LIMBS,) + (1,) * (a.ndim - 1))
-    return mont_mul(a, jnp.broadcast_to(r2, a.shape), unroll=unroll, fc=fc)
+    r2 = jnp.reshape(_R2_COL, (LIMBS,) + (1,) * (a.ndim - 1))
+    return mont_mul(a, jnp.broadcast_to(r2, a.shape), unroll=unroll)
 
-def from_mont(a, unroll: bool = False, fc: FieldConsts | None = None):
+def from_mont(a, unroll: bool = False):
     """Montgomery form -> standard form (< 2p; normalize() for canonical)."""
-    fc = fc or default_consts()
-    o = jnp.reshape(fc.one, (LIMBS,) + (1,) * (a.ndim - 1))
-    return mont_mul(a, jnp.broadcast_to(o, a.shape), unroll=unroll, fc=fc)
+    o = jnp.reshape(_ONE_COL, (LIMBS,) + (1,) * (a.ndim - 1))
+    return mont_mul(a, jnp.broadcast_to(o, a.shape), unroll=unroll)
 
 
 # ---------------------------------------------------------------------------

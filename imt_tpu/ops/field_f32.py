@@ -1,8 +1,9 @@
-"""BN254 Fr arithmetic in float32 digit form with MXU matmul reductions.
+"""BN254 Fr arithmetic in float32 digit form with matrix-unit reductions.
 
-Motivation (measured on the target v5e): the VPU's int32 multiply is emulated
-(~130 G elem/s) while f32 FMA runs at ~870 G elem/s and the MXU is idle in a
-hash workload.  This module therefore represents a field element as
+Motivation: an accelerator whose vector unit emulates int32 multiply but
+runs f32 FMA natively, and whose matrix unit (tensor cores on a GPU) sits
+idle in a hash workload.  This module therefore represents a field element
+as
 
     32 digits of 8 bits, held exactly in float32  (digit axis LEADING:
     f32[32, *batch], value = sum(d_k * 256^k), Montgomery domain, < 2p)
@@ -12,7 +13,7 @@ and implements multiplication as
     schoolbook product in f32 (exact: products <= 255^2, position sums of
     <= 96 terms < 2^23 < 2^24) followed by a Montgomery reduction whose two
     big multiplies are CONSTANT multiplications and therefore run as exact
-    bf16 x bf16 -> f32 matmuls on the MXU:
+    bf16 x bf16 -> f32 matmuls on the matrix unit / tensor cores:
 
         m     = (T * N') mod 2^256        ... T_digits @ W_nprime  (matmul)
         T'    = (T + m * N) / 2^256       ... m_digits @ W_n       (matmul)
@@ -25,9 +26,9 @@ integer < 2^24, every bf16 matmul input is an integer <= 255 (exact in bf16),
 and every matmul accumulator sums at most 128 products of <= 255^2, staying
 < 2^24 — all exactly representable.  There is no rounding anywhere.
 
-This is the TPU-first redesign of the reference's 4x64-bit Montgomery core
-(halo2curves dependency, reference src/indexed_merkle_tree.rs:382-385): same
-field, radically different decomposition chosen for the MXU/VPU mix.
+This redesigns the reference's 4x64-bit Montgomery core (halo2curves
+dependency, reference src/indexed_merkle_tree.rs:382-385): same field,
+radically different decomposition chosen for a vector + matrix unit mix.
 """
 
 from __future__ import annotations
@@ -185,7 +186,7 @@ def _conv_product(a, b):
 
 
 def _matmul_digits(x, w):
-    """x: f32[K, *batch] digits (<=255) -> position sums via MXU.
+    """x: f32[K, *batch] digits (<=255) -> position sums via a bf16 dot.
 
     Contracts the LEADING digit axis directly ([K_out, K] @ [K, ...]) so no
     transpose/relayout of the batch is ever needed; the batch stays on the

@@ -1,8 +1,8 @@
-"""BN254 Fr arithmetic in RNS (residue) form — the TPU fast path.
+"""BN254 Fr arithmetic in RNS (residue) form — the default engine's core.
 
 Device-side implementation of the pipeline specified and modeled in
 rns_spec.py.  A field element is f32[2n, *batch] (n=24 channels per RNS base,
-channel axis LEADING so the batch sits on VPU lanes), value in Montgomery
+channel axis LEADING so the batch is the minor, contiguous axis), value in Montgomery
 domain (x*M1 mod p), each channel *quasi-canonical*: an integer in [0, q+2].
 
 Key device facts this module is built on (all verified on host, see
@@ -15,8 +15,8 @@ rns_spec.py docstring + tools/validate_rns_mod.py):
 * Every f32 intermediate is a nonnegative integer < 2^24 (exact); every
   matmul input is an integer <= 255 (exact in bf16); every matmul
   accumulator stays < 2^24 (exact in f32).
-* Each Montgomery reduction costs ~50 VPU ops/channel plus two bf16 MXU
-  dots of shape [3n+1, 2n] @ [2n, batch] — the Kawamura alpha estimate
+* Each Montgomery reduction costs ~50 elementwise ops/channel plus two
+  bf16 dots (matrix unit / tensor cores, f32 accumulation) of shape [3n+1, 2n] @ [2n, batch] — the Kawamura alpha estimate
   rides the dot as one extra lhs row (bf16 rounding of the 1/q row is
   within the proven 0.25 / 0.5-delta margins).
 
@@ -150,7 +150,8 @@ def mod_q(x, q_col, invq_col):
 
 
 def _dot(lhs_np, rhs):
-    """Constant [R, C] @ rhs f32[C, *batch] -> f32[R, *batch] via bf16 MXU.
+    """Constant [R, C] @ rhs f32[C, *batch] -> f32[R, *batch] as a bf16 dot
+    with f32 accumulation (explicit bf16 operands: TF32 never applies).
 
     rhs entries must be integers <= 256 (bf16-exact); lhs integer rows are
     <= 255, est rows are intentionally approximate (error margin proven)."""

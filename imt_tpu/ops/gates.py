@@ -1,7 +1,7 @@
 """Gadget-level ops mirroring the reference chip's constraint-layer surface.
 
 The reference builds its circuit from halo2-base GateChip/RangeChip gadgets
-(src/indexed_merkle_tree.rs:32-125).  On TPU there is no constraint system —
+(src/indexed_merkle_tree.rs:32-125).  On the device there is no constraint system —
 these are plain batched computations — but the SEMANTIC surface is replicated
 1:1 so users of the reference find every gadget:
 

@@ -1,9 +1,9 @@
 """Batched Poseidon permutation + fixed-length hashes in JAX (XLA path).
 
-TPU-first design notes:
+Design notes:
 
-* State layout is ``uint32[16 limbs, 3 words, B]`` — limb axis leading (VPU
-  sublanes), batch trailing (VPU lanes).  Every op is elementwise over the
+* State layout is ``uint32[16 limbs, 3 words, B]`` — limb axis leading,
+  batch trailing (the minor, contiguous axis).  Every op is elementwise over the
   trailing batch; there is no per-element control flow, so the whole
   permutation is a single fused XLA computation.
 
@@ -65,8 +65,8 @@ class Poseidon:
     unroll=False (default): rounds and CIOS limb loops run under lax.scan —
     small compiled graphs, best for CPU/tests and cold compiles.
     unroll=True: everything unrolled into one flat elementwise graph — no
-    while-loop dispatch overhead, best for TPU throughput (XLA fuses the
-    whole permutation; compile is slower but cached)."""
+    while-loop overhead (XLA fuses the whole permutation; compile is
+    slower but cached)."""
 
     def __init__(self, spec: PoseidonSpecArrays | None = None,
                  unroll: bool = False):
@@ -89,8 +89,8 @@ class Poseidon:
         # Tree-add groups of t.
         acc = prods[:, 0::t, :]
         for j in range(1, t):
-            acc = field.add_mod(acc, prods[:, j::t, :], unroll=self.unroll)
-        return field.add_mod(acc, jnp.broadcast_to(rc_round, acc.shape), unroll=self.unroll)
+            acc = field.add_mod(acc, prods[:, j::t, :])
+        return field.add_mod(acc, jnp.broadcast_to(rc_round, acc.shape))
 
     def _sbox_full(self, st):
         x2 = field.mont_mul(st, st, unroll=self.unroll)
@@ -109,7 +109,7 @@ class Poseidon:
         half = spec.r_f // 2
         rc = jnp.asarray(self._rc)
 
-        st = field.add_mod(st, jnp.broadcast_to(rc[0], st.shape), unroll=self.unroll)
+        st = field.add_mod(st, jnp.broadcast_to(rc[0], st.shape))
 
         def full_body(s, rc_row):
             s = self._sbox_full(s)
@@ -149,10 +149,10 @@ class Poseidon:
         st = self.permute(st)
         one = jnp.broadcast_to(jnp.asarray(self._one)[:, None], (field.LIMBS, 1) + bsz)
         st = jnp.concatenate([
-            st[:, 0:1], field.add_mod(st[:, 1:2], one, unroll=self.unroll),
+            st[:, 0:1], field.add_mod(st[:, 1:2], one),
             st[:, 2:3]], axis=1)
         st = self.permute(st)
-        return field.normalize(field.from_mont(st[:, 1], unroll=self.unroll), unroll=self.unroll)
+        return field.normalize(field.from_mont(st[:, 1], unroll=self.unroll))
 
     def hash3(self, a, b, c):
         """Batched 3-to-1 hash (indexed leaf), canonical limbs [16, B].
@@ -169,11 +169,11 @@ class Poseidon:
         one = jnp.broadcast_to(jnp.asarray(self._one)[:, None], (field.LIMBS, 1) + bsz)
         st = jnp.concatenate([
             st[:, 0:1],
-            field.add_mod(st[:, 1:2], field.to_mont(c, unroll=self.unroll)[:, None], unroll=self.unroll),
-            field.add_mod(st[:, 2:3], one, unroll=self.unroll),
+            field.add_mod(st[:, 1:2], field.to_mont(c, unroll=self.unroll)[:, None]),
+            field.add_mod(st[:, 2:3], one),
         ], axis=1)
         st = self.permute(st)
-        return field.normalize(field.from_mont(st[:, 1], unroll=self.unroll), unroll=self.unroll)
+        return field.normalize(field.from_mont(st[:, 1], unroll=self.unroll))
 
     def hash_fixed(self, cols):
         """Arbitrary fixed-length hash — the halo2-base
@@ -197,8 +197,7 @@ class Poseidon:
         if len(xs) == 1:                    # single padded chunk [x, 1]
             st = jnp.concatenate([iv0, xs[0][:, None], one], axis=1)
             st = self.permute(st)
-            return field.normalize(field.from_mont(st[:, 1], unroll=u),
-                                   unroll=u)
+            return field.normalize(field.from_mont(st[:, 1], unroll=u))
         # first full chunk seeds words 1/2 directly (state starts at zero)
         st = jnp.concatenate([iv0, xs[0][:, None], xs[1][:, None]], axis=1)
         st = self.permute(st)
@@ -206,23 +205,22 @@ class Poseidon:
         while i + 2 <= len(xs):             # full RATE=2 chunks
             st = jnp.concatenate(
                 [st[:, 0:1],
-                 field.add_mod(st[:, 1:2], xs[i][:, None], unroll=u),
-                 field.add_mod(st[:, 2:3], xs[i + 1][:, None], unroll=u)],
+                 field.add_mod(st[:, 1:2], xs[i][:, None]),
+                 field.add_mod(st[:, 2:3], xs[i + 1][:, None])],
                 axis=1)
             st = self.permute(st)
             i += 2
         if i < len(xs):                     # trailing element + pad 1
             st = jnp.concatenate(
                 [st[:, 0:1],
-                 field.add_mod(st[:, 1:2], xs[i][:, None], unroll=u),
-                 field.add_mod(st[:, 2:3], one, unroll=u)], axis=1)
+                 field.add_mod(st[:, 1:2], xs[i][:, None]),
+                 field.add_mod(st[:, 2:3], one)], axis=1)
         else:                               # pad-only chunk [1]
             st = jnp.concatenate(
-                [st[:, 0:1], field.add_mod(st[:, 1:2], one, unroll=u),
+                [st[:, 0:1], field.add_mod(st[:, 1:2], one),
                  st[:, 2:3]], axis=1)
         st = self.permute(st)
-        return field.normalize(field.from_mont(st[:, 1], unroll=u),
-                               unroll=u)
+        return field.normalize(field.from_mont(st[:, 1], unroll=u))
 
 
 # Module-level default engine + jitted entry points.

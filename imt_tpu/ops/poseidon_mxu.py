@@ -1,15 +1,14 @@
-"""Poseidon engine with MXU-matmul linear layers and f32-digit arithmetic.
+"""Poseidon engine with matrix-unit linear layers and f32-digit arithmetic.
 
-The TPU-first execution plan (v2 — after profiling the v5e):
+Execution plan (an engine kept for oracle diversity):
 
 * S-box x^5: three f32-digit Montgomery multiplies per word (field_f32) —
-  exact f32 schoolbook products on the VPU (~7x the throughput of the
-  emulated int32 multiply path) + MXU matmul reductions.
+  exact f32 schoolbook products + bf16 matmul reductions.
 * MDS layer + round constant: ONE exact bf16 matmul computes all nine
   constant multiplications' digit-position sums at once
   ([B, 96] @ [96, 189]); the round constant (pre-multiplied by R so it
   survives the Montgomery reduction) is added to the position sums for
-  free; one Montgomery reduction per output word finishes on the MXU.
+  free; one Montgomery reduction per output word finishes as a matmul.
 * Rounds run under lax.scan (one compiled body per round type).
 
 State: f32[32 digits, 3 words, B], Montgomery domain, < 2p.
@@ -74,7 +73,7 @@ class PoseidonMXU:
     # -- internals -----------------------------------------------------------
 
     def _mds_arc(self, st, rc_pos_row):
-        """st: [32, t, B] -> MDS * st + rc (Montgomery), via one MXU matmul.
+        """st: [32, t, B] -> MDS * st + rc (Montgomery), via one bf16 matmul.
         rc_pos_row: [64, t] position constants (rc * R)."""
         t = self.spec.t
         b = st.shape[-1]

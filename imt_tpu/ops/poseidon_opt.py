@@ -27,8 +27,8 @@ Derivation (all mod p, t=3; e0 = word-0 unit vector, S_0(y) = y + e0·(y0^5
   sparse matrices and one leftover dense Mpre folded into the MDS of the
   last leading full round.
 
-The kernel consumes this via poseidon_rns_pallas's "opt" layout, which
-additionally keeps the two column words UNREDUCED for g rounds at a time
+A fused permutation can additionally keep the two column words UNREDUCED
+for g rounds at a time (permute_opt_lazy models that schedule)
 (their updates are w_i·S + x_i — constant times reduced S-box output, so
 the represented integers grow only additively) and expands row 0's
 consumption of the stale columns into combined coefficients
@@ -161,8 +161,8 @@ def permute_opt_lazy(state, opt: OptPoseidonParams, g: int):
     """The KERNEL'S schedule over python ints: columns refreshed every g
     rounds, row 0 consuming stale columns via the combined coefficients
     cc[d][j] = v1_{b+d}·w1_{b+j} + v2_{b+d}·w2_{b+j}.  Algebraically
-    identical to permute_opt (asserted in tests) — this is the reference
-    for the Pallas "opt" layout's period structure."""
+    identical to permute_opt (asserted in tests) — the reference for a
+    fused permutation's period structure (ROADMAP Speed 1.2(b))."""
     t = opt.t
     half = opt.r_f // 2
     x = list(state)

@@ -16,7 +16,7 @@ Ground truth: Poseidon(0,0,0) must equal
 (reference src/indexed_merkle_tree.rs:247-251, test at :805-810).
 
 This module is host-side python-int math, used as the oracle that the JAX /
-Pallas / C++ implementations must match bit-exactly.
+C++ implementations must match bit-exactly.
 """
 
 from __future__ import annotations

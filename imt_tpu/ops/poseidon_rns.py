@@ -1,15 +1,14 @@
-"""Batched Poseidon permutation over the RNS field core — the TPU fast path.
+"""Batched Poseidon permutation over the RNS field core — the default engine.
 
 Same sponge semantics and round schedule as poseidon_jax.py (and therefore
 the same bit-exact outputs, enforced by tests), but the state lives as
 f32[2n_channels, t, batch] RNS residues (field_rns.py) instead of uint32
-limbs.  Throughput rationale and exactness proofs: field_rns.py docstring
-and PLAN_ROUND2.md.
+limbs.  Rationale and exactness proofs: field_rns.py and rns_spec.py.
 
 Per permutation: 8 full rounds (3 s-boxes) + 57 partial rounds (1 s-box),
 each s-box x^5 = three Montgomery reductions, each MDS row one reduction
 with the ARC add fused into the reduction's final mod — 438 reductions
-total, each two MXU dots + ~50 VPU ops/channel.
+total, each two bf16 dots + ~50 elementwise ops/channel.
 
 Reference parity anchors: H(0,0,0) (reference src/indexed_merkle_tree.rs:247-251)
 and the sponge discipline of pse-poseidon (2-input: src/utils.rs:46-47;

@@ -1,25 +1,25 @@
-"""RNS (residue number system) spec for BN254 Fr Montgomery arithmetic on TPU.
+"""RNS (residue number system) spec for BN254 Fr Montgomery arithmetic.
 
 Host-side parameter generation + an exact pure-python reference model of the
 RNS Montgomery pipeline.  The JAX device path (field_rns.py / poseidon_rns.py)
 must agree with this model bit-for-bit; the model itself is property-tested
 against plain python-int field arithmetic.
 
-Why RNS (the TPU-first argument, measured on v5e — see PLAN_ROUND2.md):
+Why RNS (chosen for hardware whose vector unit emulates int32 multiply but
+runs f32 FMA natively; whether it suits the GPU is ROADMAP Speed 1.2(d)):
 
-* The VPU's int32 multiply is emulated (~130 G elem/s) while f32 FMA runs at
-  ~870 G elem/s.  A field element becomes residues mod 2n small primes
-  (~11.2 bits), so a variable*variable field multiply is ONE exact f32
-  multiply per channel instead of a ~2000-op CIOS limb convolution.
+* A field element becomes residues mod 2n small primes (~11.2 bits), so a
+  variable*variable field multiply is ONE exact f32 multiply per channel
+  instead of a ~2000-op CIOS limb convolution.
 * The only cross-channel work is the pair of base extensions inside each
   Montgomery reduction (Bajard/Imbert/Kawamura RNS Montgomery).  Each
-  extension is a constant-matrix multiply over the channel axis — an MXU
-  bf16 matmul, with the Kawamura alpha-estimate fused in as one extra lhs row.
+  extension is a constant-matrix multiply over the channel axis — a bf16
+  matmul on the matrix unit / tensor cores, with the Kawamura alpha-estimate fused in as one extra lhs row.
 
 This re-derives the capability of the reference's 4x64-bit Montgomery core
 (halo2curves dependency; modulus quoted at reference
-src/indexed_merkle_tree.rs:382-385) in a decomposition chosen for the
-VPU/MXU mix — it shares no structure with the Rust code.
+src/indexed_merkle_tree.rs:382-385) in a decomposition chosen for a
+vector + matrix unit mix — it shares no structure with the Rust code.
 
 Exactness rules (every device op must satisfy these; the model asserts them):
 

@@ -1,11 +1,12 @@
 """Compiled-HLO collective audit — the N-independence regression guard.
 
-SCALING.md's >=80% multi-chip efficiency model hinges on one property: the
+Multi-device scaling of the sharded tree hinges on one property: the
 shard-local planner programs (parallel/local_plan.py) never move collective
 bytes proportional to the tree size N — only O(K) candidate exchanges,
 O(K*depth_loc) witness psums, and one root gather.  The GSPMD-default
 programs are known to all-gather the full [16, N] state through their sort
-(SCALING.md §2 calls that fatal at config-5 scale), which is exactly the
+(fatal at config-5 scale: the collective inventory measured it), which is
+exactly the
 regression this audit exists to catch: a planner edit that quietly falls
 back to the GSPMD sort.
 
@@ -27,8 +28,7 @@ test — reverting the local planner to the GSPMD sort turns the suite red).
 
 Reference framing: the reference has no distributed machinery at all
 (SURVEY §2.3 — single-threaded Rust, src/indexed_merkle_tree.rs); this bar
-is BASELINE.json's north-star scaling target, held to the same regression
-discipline as bit-exactness.
+is held to the same regression discipline as bit-exactness.
 """
 
 from __future__ import annotations

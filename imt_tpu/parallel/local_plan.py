@@ -3,9 +3,8 @@
 tools/collective_inventory.py measures that GSPMD partitions the global
 9-key sort of `_insert_batch_fn` by ALL-GATHERING the full [16, N] value
 array (plus an all-reduce of the [16, N+K] sorted product): fine at toy
-sizes, fatal at BASELINE config-5 scale (67 MB per step per device).  This
-module is the mitigation SCALING.md §3 names: plan locally, exchange only
-O(K) candidates.
+sizes, fatal at config-5 scale (67 MB per step per device).  This module
+is the mitigation: plan locally, exchange only O(K) candidates.
 
 Algorithm (mesh of D shards, each owning C = N/D contiguous slots):
 
@@ -78,8 +77,8 @@ def _rank_plan(new_vals, slots, qpos, blo_v, blo_s, blo_f,
     entry table's (value, slot) tie-break because new slots are assigned
     in batch order and participant slots (<= count) precede them — so ONE
     1-key argsort of the query positions replaces the 9-key sort.  The
-    replicated planning term in SCALING.md §4's correction drops from a
-    3K-row multiway sort to K-row elementwise work.
+    replicated planning term drops from a 3K-row multiway sort to K-row
+    elementwise work.
 
     Correctness of the reductions (all values below are per rank r):
     * acceptance: a new value is rejected iff it ties a participant
@@ -453,7 +452,7 @@ def local_insert_batches(tree, new_vals, mesh: Mesh, k: int, b: int):
 # Shard-local non-inclusion witness — the query-side twin of the planner.
 #
 # The GSPMD-partitioned `_non_inclusion_witness_fn` pays the same measured
-# full-state all-gather through its 9-key sort (SCALING.md §2).  Here each
+# full-state all-gather through its 9-key sort.  Here each
 # shard finds its local below1 candidate per query (largest local
 # participant <= q; an equal value sorts BEFORE the query, so duplicates are
 # caught and ok comes back False), one O(K) exchange reduces the global low

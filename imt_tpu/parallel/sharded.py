@@ -1,8 +1,10 @@
 """Multi-chip sharding for the indexed-Merkle-tree engine.
 
 The reference is single-threaded Rust (SURVEY §2.3: no parallel or
-distributed machinery exists there); this module is the TPU-native scaling
-design from SURVEY §7.2 L4:
+distributed machinery exists there); this module is the data-parallel
+scaling design from SURVEY §7.2 L4.  The mesh is flat: the cards of one
+host reach each other all to all at one rate, so nothing gains from a
+host/card hierarchy.
 
 * Mesh axis ``shard``: tree leaves (and hash batches) are sharded over it.
 * Hash batches are embarrassingly data-parallel — jit with a NamedSharding on
@@ -34,19 +36,6 @@ def make_mesh(n_devices: int | None = None, axis: str = "shard") -> Mesh:
     devs = jax.devices()
     n = n_devices or len(devs)
     return Mesh(np.array(devs[:n]), (axis,))
-
-
-def make_mesh2(n_hosts: int, n_chips: int,
-               axes: tuple[str, str] = ("host", "chip")) -> Mesh:
-    """Two-axis ('host', 'chip') mesh (SURVEY §7.2 L5): the chip axis rides
-    ICI (fast, intra-host), the host axis rides DCN (slow, inter-host).
-    Hierarchical ops gather per chip axis first and exchange only per-host
-    aggregates across the host axis — see sharded_tree_root2."""
-    devs = jax.devices()
-    need = n_hosts * n_chips
-    if len(devs) < need:
-        raise ValueError(f"need {need} devices, have {len(devs)}")
-    return Mesh(np.array(devs[:need]).reshape(n_hosts, n_chips), axes)
 
 
 def shard_batch(arr, mesh: Mesh, axis: str = "shard"):
@@ -107,69 +96,6 @@ def sharded_root(leaves, mesh: Mesh):
     return top[:, -1:]
 
 
-@lru_cache(maxsize=None)
-def _sharded_build2_fn(local_depth: int, n_hosts: int, n_chips: int,
-                       mesh_key):
-    """Hierarchical two-axis tree build: local subtree reduce -> ONE
-    all_gather over 'chip' (ICI, C columns) -> replicated-per-host reduce to
-    the host root -> ONE all_gather over 'host' (DCN, H columns) -> tiny
-    replicated top.  DCN carries H node columns instead of the H*C a flat
-    gather would ship across hosts."""
-    mesh = _MESHES[mesh_key]
-
-    @jax.jit
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(None, ("host", "chip")),),
-             out_specs=(P(None, ("host", "chip")), P(None, None)),
-             check_vma=False)
-    def build(local_leaves):
-        cur = local_leaves                       # [16, N/(H*C)] per device
-        for _ in range(local_depth):
-            cur = poseidon_jax.hash2(cur[:, 0::2], cur[:, 1::2])
-        # intra-host: gather the C chip roots over ICI, reduce to host root
-        chip_roots = jax.lax.all_gather(cur, "chip", axis=1,
-                                        tiled=True)          # [16, C]
-        hr = chip_roots
-        while hr.shape[1] > 1:
-            hr = poseidon_jax.hash2(hr[:, 0::2], hr[:, 1::2])
-        # inter-host: gather only the H host roots over DCN
-        host_roots = jax.lax.all_gather(hr, "host", axis=1,
-                                        tiled=True)          # [16, H]
-        top = [host_roots]
-        while top[-1].shape[1] > 1:
-            t = top[-1]
-            top.append(poseidon_jax.hash2(t[:, 0::2], t[:, 1::2]))
-        return cur, jnp.concatenate(top, axis=1)
-
-    return build
-
-
-def sharded_tree_root2(leaves, mesh: Mesh):
-    """Root of the Poseidon Merkle tree over a two-axis ('host','chip')
-    mesh — bit-exact with the flat-axis build and the single-device tree
-    (leaf order: host-major, chip-minor, matching make_mesh2's reshape).
-    Returns (per-device subtree roots [16, H*C], host-level top nodes
-    [16, 2H-1]); top[:, -1] is the global root."""
-    h, c = mesh.devices.shape
-    n = leaves.shape[1]
-    d = h * c
-    if n % d or (n // d) & (n // d - 1):
-        raise ValueError("leaves per device must be a power of two")
-    if h & (h - 1) or c & (c - 1):
-        raise ValueError("mesh axes must be powers of two")
-    local_depth = (n // d).bit_length() - 1
-    key = (tuple(dev.id for dev in mesh.devices.flat), mesh.devices.shape)
-    _MESHES[key] = mesh
-    shard_roots, top = _sharded_build2_fn(local_depth, h, c, key)(
-        jax.device_put(leaves, NamedSharding(mesh, P(None, ("host", "chip")))))
-    return shard_roots, top
-
-
-def sharded_root2(leaves, mesh: Mesh):
-    _, top = sharded_tree_root2(leaves, mesh)
-    return top[:, -1:]
-
-
 def sharded_hash2(a, b, mesh: Mesh):
     """Data-parallel batched 2-to-1 hash over the mesh (batch sharded)."""
     sh = NamedSharding(mesh, P(None, "shard"))
@@ -196,11 +122,11 @@ class ShardedIndexedMerkleTree:
     insert/witness steps are the SAME cached programs as single-device;
     GSPMD partitions the global sort, gathers and dirty-path scatters and
     inserts the collectives (the reference has no distributed machinery at
-    all — SURVEY §2.3; this is the TPU-native scaling answer).
+    all — SURVEY §2.3; this is the multi-device scaling answer).
 
     ``sparse=True`` (default for depth > 20) backs the tree with the
     sparse-prefix container: only the active prefix is materialized and
-    sharded, so depth-32+ trees scale across the mesh (BASELINE config 5).
+    sharded, so depth-32+ trees scale across the mesh (bench config 5).
 
     Narrow levels (width < mesh size) stay replicated: the top of the tree
     is latency-bound, so collectives there would cost more than they save.
@@ -226,10 +152,9 @@ class ShardedIndexedMerkleTree:
         # / insert_batches run the shard-local planner (parallel/local_plan.py)
         # — O(K) collectives independent of tree size, instead of the GSPMD
         # full-state all-gather the collective inventory measured as fatal at
-        # config-5 scale (SCALING.md §2).  Falls back to the GSPMD path only
-        # when the active prefix is too small to shard, or on a 1-device
-        # mesh: at D=1 the planner's replicated 3K-row planning sort is pure
-        # overhead (measured 0.84-0.90x the plain step, SCALING.md §4) and
+        # config-5 scale.  Falls back to the GSPMD path only when the
+        # active prefix is too small to shard, or on a 1-device mesh: at
+        # D=1 the planner's replicated planning work is pure overhead and
         # the inner single-device program needs no collectives at all.
         self.local_plan = local_plan
         self._inner = (SparseIndexedMerkleTree(depth, initial_capacity_log2)
@@ -287,7 +212,7 @@ class ShardedIndexedMerkleTree:
         instead of the inner tree's GSPMD `_insert_step_fn`, whose planner
         masks/argmaxes over all N slots and therefore moves full-state
         collectives on a mesh (the pattern the collective inventory calls
-        fatal at scale, SCALING.md §2).  Witnesses are bit-identical to the
+        fatal at scale).  Witnesses are bit-identical to the
         sequential inner insert (temporal ANSV at K=1; asserted vs the
         dense reference tree in tests/_sharded_check.py).  The bare-insert
         dispatch footgun warning still applies — prefer insert_seq /
@@ -399,7 +324,7 @@ class ShardedIndexedMerkleTree:
         (the default) the whole chain is ONE shard_map program: per batch an
         O(K) candidate exchange + sharded slab/low subtree update, with the
         root gather + replicated top rebuild paid once at the end (the
-        BASELINE config-5 shape).  Falls back to the inner tree's chained
+        config-5 shape).  Falls back to the inner tree's chained
         program when the active prefix is too small to shard."""
         from ..tree.indexed import _as_batch_stack
         from ..utils.observability import GLOBAL_METRICS

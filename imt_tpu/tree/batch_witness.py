@@ -1,8 +1,8 @@
-"""Witness-producing batched insertion — the TPU flagship op, completed.
+"""Witness-producing batched insertion — the flagship op, completed.
 
 The reference's ``insert_leaf`` chip consumes a full witness bundle per
 insertion (old/new roots, low/new leaves, both sibling paths, helper bits —
-/root/reference/src/indexed_merkle_tree.rs:231-244), and its tests generate
+src/indexed_merkle_tree.rs:231-244), and its tests generate
 those witnesses by strictly sequential host insertion (:710-802).  The plain
 batched path (indexed._insert_batch_fn) resolves a whole batch with one sort
 but only returns acceptance — it never materializes the per-insert

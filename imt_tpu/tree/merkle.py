@@ -1,4 +1,4 @@
-"""Poseidon Merkle tree with device-resident levels (TPU-native).
+"""Poseidon Merkle tree with device-resident levels.
 
 Capability parity with the reference's native tree (src/utils.rs:6-108):
 

@@ -145,8 +145,8 @@ class SparseIndexedMerkleTree:
 
         as_numpy=False keeps the witness device-resident (async-dispatch
         pipelining across chained inserts — see IndexedMerkleTree.insert).
-        Prefer insert_seq for sequences (one dispatch per chunk, ~300x the
-        per-call throughput through a network-attached chip)."""
+        Prefer insert_seq for sequences (one dispatch per chunk instead of
+        one per insert)."""
         self._check_repr()
         indexed._count_bare_insert()
         if self.count + 1 >= (1 << self.tree_depth):

@@ -12,6 +12,10 @@ cache, so the cost is re-tracing, not re-compiling.
 Used by tests/conftest.py between test modules (bounds suite RSS to the
 largest single module) and available to any long-lived service embedding
 the engine.
+
+``setup_compile_cache()`` is the one place that points JAX's persistent
+compilation cache at a directory: every entry point (bench.py,
+chip_smoke.py, tools/, the tests and their subprocess scripts) calls it.
 """
 
 from __future__ import annotations
@@ -44,6 +48,36 @@ def host_cache_dir(root: str) -> str:
         pass
     path = os.path.join(root, tag)
     os.makedirs(path, exist_ok=True)
+    return path
+
+
+# <checkout>/.jax_cache — a fixed path: the directory is part of what a
+# cache hit needs, so a per-process or temporary name would never hit.
+DEFAULT_CACHE_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+# programs that compile faster than this are not written to the cache
+MIN_COMPILE_SECS = 1.0
+
+
+def setup_compile_cache() -> str:
+    """Enable JAX's persistent compilation cache; returns its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, wins: JAX reads it itself and
+    no directory is set here.  Otherwise the cache lives at
+    ``.jax_cache/<host key>`` in the checkout (host_cache_dir)."""
+    import jax
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        path = env
+    else:
+        path = host_cache_dir(DEFAULT_CACHE_ROOT)
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      MIN_COMPILE_SECS)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return path
 
 

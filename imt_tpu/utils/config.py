@@ -4,7 +4,7 @@ The reference's only configuration is compile-time const generics (T/RATE on
 the tree and hasher, R_F/R_P at construction — src/utils.rs:6,
 src/indexed_merkle_tree.rs:362-365) plus the circuit-size builder (k,
 lookup_bits — :434-437).  Here the same knobs are a dataclass; circuit-size
-knobs have no TPU analog and are replaced by batching/mesh shape.
+knobs have no device analog and are replaced by batching/mesh shape.
 """
 
 from __future__ import annotations
@@ -24,14 +24,9 @@ class PoseidonConfig:
 class EngineConfig:
     poseidon: PoseidonConfig = dfield(default_factory=PoseidonConfig)
     tree_depth: int = 32
-    # "rns" (f32 residue channels + MXU base-extension dots — fastest on
-    # TPU), "pallas" (fused Mosaic kernel), "cios" (uint32 16-bit-limb CIOS
-    # — CPU/test default); see ops/hashing.py (default: auto by platform)
+    # "rns" (f32 residue channels + bf16 base-extension dots), "cios"
+    # (uint32 16-bit-limb CIOS); "auto" = ops/hashing.py's default (rns)
     hash_engine: str = "auto"
-    # pallas kernel layout: "auto" = the measured default (opt4 — the
-    # optimized-spec sparse partial rounds); "split" is the conservative
-    # round-3 structure (kill switch), "optG" selects a refresh period
-    pallas_layout: str = "auto"
     batch_size: int = 4096
     # sparse-prefix storage: None = auto (depth > 20), matching the
     # ShardedIndexedMerkleTree default
@@ -43,6 +38,12 @@ class EngineConfig:
     # fail-fast witness re-verification (the reference's prover-side
     # assert_eq! discipline, src/indexed_merkle_tree.rs:158-167)
     debug_witness: bool = False
+
+    def __post_init__(self):
+        from ..ops.hashing import ENGINES
+        if self.hash_engine != "auto" and self.hash_engine not in ENGINES:
+            raise ValueError(f"unknown hash engine {self.hash_engine!r}: "
+                             f"expected 'auto' or one of {ENGINES}")
 
     def apply(self) -> None:
         """Validate and install the global knobs this config carries.
@@ -57,9 +58,6 @@ class EngineConfig:
         from ..ops import hashing
         hashing.set_backend(
             None if self.hash_engine == "auto" else self.hash_engine)
-        from ..ops import poseidon_rns_pallas as pk
-        pk.set_layout(
-            None if self.pallas_layout == "auto" else self.pallas_layout)
         from ..tree import indexed
         indexed.set_debug_witness(self.debug_witness)
         from .observability import log_event

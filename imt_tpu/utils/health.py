@@ -72,8 +72,7 @@ def check_tree(tree, sample: int = 8, seed: int = 0) -> HealthReport:
         # (b) linked-list order invariant.  A ZERO value in an occupied
         # slot (1..count) is itself corruption — insertion never stores 0
         # (reserved for the sentinel/empty leaf), and skipping such slots
-        # would let a zeroed-and-rehashed state evade the audit entirely
-        # (ADVICE r04).
+        # would let a zeroed-and-rehashed state evade the audit entirely.
         if v == 0 and s != 0:
             failures.append((int(s), "empty",
                              "occupied slot holds the reserved zero value"))

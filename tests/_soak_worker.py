@@ -2,11 +2,8 @@
 import os, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-from imt_tpu.utils.cache import host_cache_dir
-jax.config.update("jax_compilation_cache_dir", host_cache_dir(
-    os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from imt_tpu.utils.cache import setup_compile_cache
+setup_compile_cache()
 import random
 from imt_tpu.tree.sparse import SparseIndexedMerkleTree
 from imt_tpu.utils import checkpoint

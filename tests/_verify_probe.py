@@ -1,13 +1,8 @@
 """Package-boundary verify probes (the /verify skill's drive recipes 1-3),
 runnable standalone from outside the repo dir."""
-import sys
+from imt_tpu.utils.cache import setup_compile_cache
 
-sys.path.insert(0, "/root/repo")
-import jax
-
-from imt_tpu.utils.cache import host_cache_dir
-jax.config.update("jax_compilation_cache_dir",
-                  host_cache_dir("/root/repo/.jax_cache"))
+setup_compile_cache()
 import numpy as np
 
 from imt_tpu.ops.poseidon_ref import generate_params, hash_fixed

@@ -143,56 +143,3 @@ def test_trace_scope(tmp_path):
         jnp.arange(8.0).sum().block_until_ready()
     # a profile capture must have been written
     assert any(tmp_path.rglob("*")), "profiler wrote nothing"
-
-
-def test_config_pallas_layout_knob():
-    """EngineConfig(pallas_layout=...) installs the kernel layout; spsim
-    (timing-only diagnostic) and unknown names are refused."""
-    import pytest
-
-    from imt_tpu.ops import poseidon_rns_pallas as pk
-    from imt_tpu.utils.config import EngineConfig
-
-    try:
-        EngineConfig(pallas_layout="split").apply()
-        assert pk.active_layout() == "split"
-        EngineConfig(pallas_layout="opt8").apply()
-        assert pk.active_layout() == "opt8"
-        with pytest.raises(ValueError):
-            pk.set_layout("spsim")
-        with pytest.raises(ValueError):
-            EngineConfig(pallas_layout="bogus").apply()
-    finally:
-        pk.set_layout(None)
-    assert pk.active_layout() == pk.DEFAULT_LAYOUT
-
-
-def test_bench_round_classifier():
-    """bench.py's headline round filter: non-positive / infinite / above-
-    bound rates are corrupted timing samples, never data (the 40.1M
-    'round' that poisoned BENCH_r04.json must be rejected)."""
-    import bench
-
-    b = 9.72e6
-    assert bench.classify_round(9.1e6, b)
-    assert bench.classify_round(b, b)              # at the bound: valid
-    assert not bench.classify_round(40.1e6, b)     # the r04 poison sample
-    assert not bench.classify_round(b * 1.001, b)
-    assert not bench.classify_round(float("inf"), b)
-    assert not bench.classify_round(0.0, b)
-    assert not bench.classify_round(-5e6, b)
-
-
-def test_spsim_requires_explicit_opt_in():
-    """The timing-only spsim layout is refused by EVERY kernel entry point
-    unless spelled 'spsim!' (ADVICE r04: one keyword must not put unsound
-    hashes on a data path)."""
-    import pytest
-
-    from imt_tpu.ops import poseidon_rns_pallas as pk
-
-    with pytest.raises(ValueError, match="spsim!"):
-        pk._make_kernel(1, 128, "perm", layout="spsim")
-    # the explicit unsound spelling resolves (kernel builder returns; no
-    # execution here — interpret-mode correctness is a non-goal for spsim)
-    pk._make_kernel(1, 128, "perm", layout="spsim!")

@@ -1,6 +1,6 @@
 """Literal replay of the reference's primary integration test.
 
-Mirrors test_insert_leaf (/root/reference/src/indexed_merkle_tree.rs:360-596)
+Mirrors test_insert_leaf (reference src/indexed_merkle_tree.rs:360-596)
 exactly: a depth-3 tree of H(0,0,0) leaves, a random 254-bit value inserted
 as the LARGEST element (index 1, is_new_leaf_largest=true), then the fixed
 value 42 inserted as a MIDDLE element (index 2, low leaf = leaf 0 pointing at

@@ -55,7 +55,7 @@ def test_check_tree_detects_order_corruption():
 def test_check_tree_detects_zeroed_occupied_slot():
     """An occupied slot zeroed AND rehashed (paths verify, order check
     vacuous for v=0) must still fail the audit — the 'empty' corruption
-    class from ADVICE r04: insertion never stores the reserved 0 value."""
+    class: insertion never stores the reserved 0 value."""
     t = IndexedMerkleTree(4)
     t.insert_batch([30, 10, 20])
     vals = np.asarray(t.vals).copy()

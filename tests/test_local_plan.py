@@ -11,11 +11,8 @@ _SCRIPT = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
 import os
-from imt_tpu.utils.cache import host_cache_dir
-jax.config.update("jax_compilation_cache_dir", host_cache_dir(
-    os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
-                                 ".jax_cache"))))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from imt_tpu.utils.cache import setup_compile_cache
+setup_compile_cache()
 import random
 import numpy as np
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 The mesh checks run in a subprocess with a 4-virtual-device CPU backend:
 the virtual multi-device CPU client multiplies thread pools and spin-locks
-(~7 minutes of sys time across the suite on this 4-core host), so the main
+(~7 minutes of sys time across the suite on a 4-core host), so the main
 pytest process stays single-device and only this file pays for a mesh.
 """
 
@@ -16,11 +16,8 @@ _SCRIPT = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
 import os
-from imt_tpu.utils.cache import host_cache_dir
-jax.config.update("jax_compilation_cache_dir", host_cache_dir(
-    os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
-                                 ".jax_cache"))))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from imt_tpu.utils.cache import setup_compile_cache
+setup_compile_cache()
 import random
 import numpy as np
 from imt_tpu.ops import field, poseidon_jax
@@ -49,13 +46,6 @@ mesh2 = sharded.make_mesh(2)
 root2 = np.asarray(sharded.sharded_root(arr[:, :32], mesh2))
 assert field.limbs_to_int(root2[:, 0]) == \
     MerkleTree.build(arr[:, :32]).get_root_int()
-
-# two-axis ('host','chip') hierarchical build: intra-host chip gather +
-# inter-host gather of host roots only — bit-exact vs flat + single-device
-meshhc = sharded.make_mesh2(2, 2)
-rooth = np.asarray(sharded.sharded_root2(arr, meshhc))
-assert field.limbs_to_int(rooth[:, 0]) == \
-    MerkleTree.build(arr).get_root_int(), "two-axis root mismatch"
 
 # sharded indexed tree container: bit-exact vs single-device, state sharded
 from imt_tpu.tree.indexed import IndexedMerkleTree
@@ -97,8 +87,8 @@ def test_sharded_paths_subprocess():
 
 @pytest.mark.slow
 def test_collective_n_independence():
-    """The SCALING.md efficiency model's load-bearing property as a failing
-    test (VERDICT r04 item 3): every shard-local program's collective volume
+    """Multi-device scaling's load-bearing property as a failing test:
+    every shard-local program's collective volume
     must be independent of the tree size N.  Compiles the four shard-local
     programs at depth 12 AND depth 14 on an 8-virtual-device CPU mesh
     (tests/_collective_check.py -> imt_tpu/parallel/collective_audit.py) and
@@ -122,7 +112,7 @@ def test_collective_n_independence():
 def test_sharded_device_resident_witness():
     """non_inclusion_witness(as_numpy=False) stays device-resident through
     ShardedIndexedMerkleTree for BOTH inner backings (the sparse branch
-    used to silently drop the flag — ADVICE r2 / VERDICT r2 weak #3)."""
+    used to silently drop the flag)."""
     import jax
     import numpy as np
     from imt_tpu.parallel.sharded import ShardedIndexedMerkleTree, make_mesh
@@ -145,8 +135,8 @@ def test_sharded_device_resident_witness():
 
 def test_one_device_mesh_routes_to_plain_step():
     """A ShardedIndexedMerkleTree on a 1-device mesh must NOT pay the
-    shard-local planner (measured 0.84-0.90x the plain step at D=1 —
-    SCALING.md §4): every batched API routes to the inner single-device
+    shard-local planner (pure overhead at D=1): every batched API routes
+    to the inner single-device
     program.  Results must equal the plain tree's."""
     from unittest import mock
 

@@ -1,12 +1,11 @@
-"""Shard-local planner overhead at D=1 on the real chip (VERDICT r04 item 5).
+"""Shard-local planner overhead at D=1 on one card.
 
-SCALING.md's >=80% efficiency model assumes local-plan compute ~= the
-single-device batched step.  The local planner pays work that exists even
-at D=1: the replicated 3K+1-row planning sort, the D-redundant wr-lane
-hashing, and the candidate exchange.  This tool measures both paths on the
-SAME pre-staged batches at the BASELINE config-4/5 shapes, interleaved
-rounds + warm-round discard + median (the repo's steady-state protocol),
-and prints the overhead ratio for SCALING.md §4.
+Multi-device efficiency assumes local-plan compute ~= the single-device
+batched step.  The local planner pays work that exists even at D=1: the
+replicated planning work, the D-redundant wr-lane hashing, and the
+candidate exchange.  This tool measures both paths on the SAME pre-staged
+batches at the config-4/5 shapes, interleaved rounds + warm-round discard +
+median (the repo's steady-state protocol), and prints the overhead ratio.
 
 Usage:  python tools/ab_localplan.py [--config 4|5] [--rounds 4]
 """
@@ -14,7 +13,6 @@ Usage:  python tools/ab_localplan.py [--config 4|5] [--rounds 4]
 from __future__ import annotations
 
 import argparse
-import os
 import statistics
 import time
 
@@ -28,10 +26,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache_tpu"))
+    from imt_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -98,7 +94,7 @@ def main():
         print(f"{name:6s} {med[name]:,.0f} inserts/s")
     print(f"\nlocal-plan D=1 overhead: local/plain = "
           f"{med['local'] / med['plain']:.3f} "
-          f"(SCALING.md assumes ~1.0; <0.8 means the replicated planning + "
+          f"(~1.0 expected; <0.8 means the replicated planning + "
           f"wr-lane redundancy is material)")
 
 

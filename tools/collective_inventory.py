@@ -1,7 +1,7 @@
 """Compiled-HLO collective inventory of the GSPMD-partitioned tree ops.
 
-SCALING.md's efficiency model assumes XLA partitions the batched-insert
-step without materializing full-state collectives.  This tool CHECKS that:
+Multi-device scaling assumes XLA partitions the batched-insert step
+without materializing full-state collectives.  This tool CHECKS that:
 it compiles the sharded programs on an N-virtual-device CPU mesh (GSPMD
 partitioning is platform-independent — the collective structure is decided
 at partitioning time, not by the target), inventories every collective in
@@ -13,14 +13,13 @@ Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python tools/collective_inventory.py [--devices 8] [--depth 12] [--k 256]
 
-Writes the per-op table to stdout (markdown) for SCALING.md.
+Writes the per-op table to stdout (markdown).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import re
 import sys
 
 # imt_tpu is an installed package (pip install -e . — pyproject.toml)
@@ -141,7 +140,7 @@ def main():
                        (*state[:3], *state[3], new_vals, jnp.int32(0)))
     lrows = lrows + lqrows + lwrows
 
-    # the check SCALING.md's model hinges on: the LOCAL-PLAN paths'
+    # the check multi-device scaling hinges on: the LOCAL-PLAN paths'
     # collective volume must be INDEPENDENT OF N (O(K) / O(K·depth_loc) —
     # candidates, base/proof psums proportional to the witness output, one
     # root gather).  A fixed-size threshold can't separate O(K·depth) from
@@ -166,42 +165,6 @@ def main():
         sys.exit(1)
     print("\nOK: every shard-local path's collective volume is independent "
           "of the tree size (O(K / K*depth_loc), never O(N))")
-
-    # --- two-axis ('host','chip') hierarchical build: per-axis bytes --------
-    # The chip-axis gather (ICI) carries the C per-chip subtree roots; the
-    # host-axis gather (DCN) carries only the H host roots.  Classify each
-    # all-gather by replica_groups: groups of size C that stay within one
-    # host row are the chip axis, groups spanning rows are the host axis.
-    if d >= 4 and d % 2 == 0:
-        h, cc = 2, d // 2
-        mesh2 = sharded.make_mesh2(h, cc)
-        key2 = (tuple(dev.id for dev in mesh2.devices.flat),
-                mesh2.devices.shape)
-        sharded._MESHES[key2] = mesh2
-        local_depth = (n // d).bit_length() - 1
-        b2 = sharded._sharded_build2_fn(local_depth, h, cc, key2)
-        leaves2 = jax.device_put(
-            jnp.zeros((field.LIMBS, n), jnp.uint32),
-            NamedSharding(mesh2, P(None, ("host", "chip"))))
-        hlo2 = b2.lower(leaves2).compile().as_text()
-        print(f"\n### two-axis hierarchical build (H={h} hosts x C={cc} "
-              f"chips, depth={depth})\n")
-        print("| collective | output shape | bytes | axis (by group size) |")
-        print("|---|---|---|---|")
-        for line in hlo2.splitlines():
-            m = re.search(
-                r"=\s*(\([^)]*\)|\S+)\s+(all-gather|all-reduce|all-to-all|"
-                r"collective-permute|reduce-scatter)\(", line)
-            if not m:
-                continue
-            g = re.search(r"replica_groups=\{\{([^}]*)\}", line)
-            gsize = len(g.group(1).split(",")) if g else 0
-            axis = ("chip (ICI)" if gsize == cc else
-                    "host (DCN)" if gsize == h else f"group={gsize}")
-            print(f"| {m.group(2)} | `{m.group(1)}` | "
-                  f"{shape_bytes(m.group(1)):,} | {axis} |")
-        print("\nDCN cost: H node columns per build (vs H*C for a flat "
-              "gather crossing hosts)")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
-"""Measure XLA TPU lax.sort / gather / scatter costs at the planner shapes.
+"""Measure XLA lax.sort / gather / scatter costs at the planner shapes.
 
 The batched-insert planner's 9-key packed sort runs over M = N + K entries
-(tree/indexed.py:543); at BASELINE config 5 that is ~1.1M rows.  This tool
-times, on the real chip (slope protocol: K repeats inside one jitted
+(tree/indexed.py _plan_batch); at config 5 that is ~1.1M rows.  This tool
+times, on the card (slope protocol: K repeats inside one jitted
 fori_loop, (K2-K1)/[K2-K1] slope, median of rounds):
 
   * sort9_<M>   — the exact 9-key uint32 sort + int32 payload
@@ -17,7 +17,6 @@ Usage: python tools/microbench_sort.py [--m 1114112] [--k 65536]
 from __future__ import annotations
 
 import argparse
-import os
 import statistics
 import sys
 import time
@@ -34,10 +33,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache_tpu"))
+    from imt_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,4 +1,4 @@
-"""Decompose insert_batch wall time on the real chip.
+"""Decompose insert_batch wall time on the card.
 
 Times three jitted programs (median of 5, slope-free: these are steady-state
 per-batch costs) at the config-4 shape (active depth 16, K=4096):
@@ -16,7 +16,6 @@ Usage: python tools/profile_batch.py [--depth 16] [--k 4096]
 from __future__ import annotations
 
 import argparse
-import os
 import statistics
 import sys
 import time
@@ -31,10 +30,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache_tpu"))
+    from imt_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from imt_tpu.ops import field, hashing

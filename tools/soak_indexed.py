@@ -27,15 +27,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import os
-
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from imt_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     import numpy as np
 
